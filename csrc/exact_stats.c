@@ -2,7 +2,7 @@
  *
  * Host-side float64/long-double math that must be bit-identical to a
  * glibc/libm evaluation (numpy's SIMD transcendentals differ in the last
- * ulp, which is observable after integer phred truncation).  The TPU device
+ * ulp, which is observable after integer phred truncation).  The device
  * kernels screen in f32; every candidate that survives screening is
  * confirmed here.
  *

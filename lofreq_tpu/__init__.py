@@ -1,4 +1,4 @@
-"""lofreq_tpu — a TPU-native (JAX/XLA/Pallas) LoFreq-class variant-calling engine.
+"""lofreq_tpu — a JAX LoFreq-class variant-calling engine for the GPU.
 
 Brand-new implementation of the capabilities of CSB5/lofreq (v2.1.5):
 ultra-sensitive, quality-aware SNV + indel calling with no allele-frequency

@@ -3,7 +3,9 @@
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -12,8 +14,8 @@ _CSRC = os.path.join(_ROOT, "csrc")
 _BUILD = os.path.join(_CSRC, "build")
 SRCS = ["ingest.c", "exact_stats.c", "baq.c", "realign.c", "columns.c",
         "bgzf.c", "screen_pack.c"]
-# non-compiled inputs that must still invalidate the build cache
-DEPS = ["baq_glocal_xw.inc"]
+# included sources that must still invalidate the build cache
+DEPS = ["baq_glocal_xw.inc", "realign_xw.inc"]
 
 _lock = threading.Lock()
 _lib = None
@@ -59,38 +61,70 @@ def _tune_malloc():
         pass  # non-glibc: defaults are fine
 
 
+def _cpu_flags() -> str:
+    """The host CPU's feature flags (what -march=native compiles for)."""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith(("flags", "Features")):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return f"{platform.machine()} {platform.processor()}"
+
+
+def _compile_args() -> list:
+    """gcc arguments, minus the output path.
+
+    -ffp-contract=off: FMA contraction would change double rounding and
+    break bit-identity with the reference kernels (goldens in
+    tests/golden/); -march=native only vectorizes, which keeps per-lane
+    IEEE semantics.  libdeflate (2-3x zlib inflate) is optional: probe for
+    header + lib, fall back to plain zlib otherwise."""
+    import ctypes.util as _cu
+
+    extra = []
+    if (os.path.exists("/usr/include/libdeflate.h")
+            and _cu.find_library("deflate")):
+        extra = ["-DLOFREQ_HAVE_LIBDEFLATE", "-ldeflate"]
+    return ["gcc", "-O3", "-march=native", "-ffp-contract=off", "-shared",
+            "-fPIC", *[os.path.join(_CSRC, s) for s in SRCS],
+            "-lm", "-lpthread", "-lz", *extra]
+
+
+def build_key(args: list) -> str:
+    """Hash of the sources, the compiler command and version, and the host
+    CPU's flags: a library built from other sources, by another compiler
+    or for another CPU is never loaded."""
+    h = hashlib.sha256()
+    for name in SRCS + DEPS:
+        with open(os.path.join(_CSRC, name), "rb") as fh:
+            h.update(name.encode() + b"\0" + fh.read() + b"\0")
+    try:
+        version = subprocess.run(["gcc", "-dumpfullversion"],
+                                 capture_output=True, text=True).stdout
+    except OSError:
+        version = ""
+    for part in ("\0".join(args), version, _cpu_flags()):
+        h.update(part.encode() + b"\0")
+    return h.hexdigest()[:16]
+
+
 def get_native_lib() -> ctypes.CDLL:
-    """Build (if stale) and load csrc/build/liblofreq_native.so."""
+    """Build (unless a library with this build_key exists) and load
+    csrc/build/liblofreq_native-<key>.so."""
     global _lib
     with _lock:
         if _lib is None:
             _tune_malloc()
-            srcs = [os.path.join(_CSRC, s) for s in SRCS]
-            out = os.path.join(_BUILD, "liblofreq_native.so")
-            os.makedirs(_BUILD, exist_ok=True)
-            deps = [os.path.join(_CSRC, d) for d in DEPS]
-            newest = max(os.path.getmtime(s) for s in srcs + deps)
-            if not (os.path.exists(out)
-                    and os.path.getmtime(out) >= newest):
+            args = _compile_args()
+            out = os.path.join(_BUILD,
+                               f"liblofreq_native-{build_key(args)}.so")
+            if not os.path.exists(out):
+                os.makedirs(_BUILD, exist_ok=True)
                 tmp = out + f".tmp{os.getpid()}"
-                # -ffp-contract=off: FMA contraction would change double
-                # rounding and break bit-identity with the reference kernels
-                # (goldens in tests/golden/); -march=native only vectorizes,
-                # which keeps per-lane IEEE semantics.
-                # libdeflate (2-3x zlib inflate) is optional: probe for
-                # header + lib, fall back to plain zlib otherwise
-                import ctypes.util as _cu
-
-                extra = []
-                if (os.path.exists("/usr/include/libdeflate.h")
-                        and _cu.find_library("deflate")):
-                    extra = ["-DLOFREQ_HAVE_LIBDEFLATE", "-ldeflate"]
-                subprocess.run(
-                    ["gcc", "-O3", "-march=native", "-ffp-contract=off",
-                     "-shared", "-fPIC", "-o", tmp, *srcs,
-                     "-lm", "-lpthread", "-lz", *extra],
-                    check=True, capture_output=True,
-                )
+                subprocess.run([*args, "-o", tmp], check=True,
+                               capture_output=True)
                 os.replace(tmp, out)
             _lib = ctypes.CDLL(out)
     return _lib

@@ -60,17 +60,16 @@ def add_call_args(p: argparse.ArgumentParser):
     p.add_argument("--force-overwrite", action="store_true")
     p.add_argument("--device-screen", dest="device_screen",
                    action="store_true", default=None,
-                   help="screen columns on the TPU before exact "
-                        "confirmation (default: on when an accelerator "
-                        "backend is present)")
+                   help="screen columns on the GPU before exact "
+                        "confirmation (default: on when JAX's backend is "
+                        "a GPU)")
     p.add_argument("--no-device-screen", dest="device_screen",
                    action="store_false",
                    help="force the all-exact host path")
     p.add_argument("--device-baq", dest="device_baq", action="store_true",
                    default=None,
-                   help="read rescoring (BAQ) on the TPU with exact host "
-                        "confirmation of candidate columns (default: on "
-                        "when the device screen is on)")
+                   help="read rescoring (BAQ) on the GPU with exact host "
+                        "confirmation of candidate columns (default: off)")
     p.add_argument("--no-device-baq", dest="device_baq",
                    action="store_false",
                    help="force the exact host BAQ kernel everywhere")
@@ -465,7 +464,8 @@ def cmd_somatic(args) -> int:
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="lofreq-tpu",
-        description="TPU-native LoFreq-class variant caller",
+        description="LoFreq-class variant caller with a GPU "
+                    "significance screen",
     )
     sub = ap.add_subparsers(dest="cmd")
 

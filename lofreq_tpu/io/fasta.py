@@ -53,9 +53,14 @@ def build_fai(path) -> list[tuple]:
 
 
 def write_fai(path, entries) -> None:
-    with open(str(path) + ".fai", "w") as fh:
+    # written aside and renamed into place: concurrent readers (forked
+    # call-parallel workers) never see a half-written index
+    fai = str(path) + ".fai"
+    tmp = f"{fai}.tmp{os.getpid()}"
+    with open(tmp, "w") as fh:
         for name, length, offset, linebases, linewidth in entries:
             fh.write(f"{name}\t{length}\t{offset}\t{linebases}\t{linewidth}\n")
+    os.replace(tmp, fai)
 
 
 def read_fai(fai_path) -> list[tuple]:

@@ -6,8 +6,8 @@ banded glocal forward/backward HMM and attach
   * 'ai'/'ad' tags: indel alignment qualities from posterior sums over
     equivalent (repeat-shifted) indel placements.
 
-The batched HMM itself lives in ops.baq_hmm (numpy exact) / ops.baq_pallas
-(TPU).  This module handles tag bookkeeping and the skip-if-present logic.
+The batched HMM itself lives in ops.baq_hmm (exact host kernel; the device
+rendition is ops.baq_jax).  This module handles tag bookkeeping and the skip-if-present logic.
 """
 
 from __future__ import annotations

@@ -1,12 +1,11 @@
 """Batched BAQ forward/backward HMM on device (JAX).
 
-TPU-native rendition of the banded glocal probabilistic alignment
-(csrc/baq.c:glocal is the exact host version; see
-/root/reference/src/lofreq/kprobaln_ext.c:80 for the original).  Instead of
-band-relative cell indexing, each DP row spans the full reference window
-(~read length + 2*band ≈ 128 lanes) and the band is applied as a mask —
-wasting a few x FLOPs the VPU doesn't notice in exchange for perfectly
-regular shapes.  The D state's within-row first-order recurrence
+Device rendition of the banded glocal probabilistic alignment
+(csrc/baq.c:glocal is the exact host version; see the reference's
+kprobaln_ext.c:80 for the original).  Instead of band-relative cell
+indexing, each DP row spans the full reference window (~read length +
+2*band ≈ 128 lanes) and the band is applied as a mask — wasting a few x
+elementwise FLOPs in exchange for perfectly regular shapes.  The D state's within-row first-order recurrence
    fD[k] = a[k] + beta * fD[k-1]
 is evaluated with an associative scan.
 
@@ -60,9 +59,11 @@ def _build(L, Lr, bw, want_pd=False, want_margin=False):
 
     # The D-state within-row recurrence fD[k] = a[k] + m22*fD[k-1] is a
     # geometric convolution fD[k] = sum_{j<=k} a[j]*m22^(k-j): one
-    # triangular-Toeplitz matmul instead of an associative scan — the MXU
-    # eats it, and m22^j underflows f32 past j~127 so the matrix IS the
-    # exact (truncated) chain.
+    # triangular-Toeplitz matmul instead of an associative scan — one
+    # [B, Lr] x [Lr, Lr] matrix product per row step — and m22^j underflows f32 past j~127 so the matrix IS the
+    # exact (truncated) chain.  Precision.HIGHEST keeps it in full f32:
+    # the GPU would otherwise run an f32 matmul in TF32 (~3 decimal
+    # digits), far outside the few-phred screening budget.
     _kj = np.arange(Lr)[:, None] - np.arange(Lr)[None, :]  # j rows, k cols
     _T = np.where(_kj <= 0, np.power(np.float64(m22), -_kj,
                                      where=_kj <= 0, out=np.zeros_like(

@@ -1,10 +1,10 @@
-"""The TPU column-calling pipeline: one jitted function that takes packed
+"""The device column-calling step: one jitted function that takes packed
 per-base column tensors and produces everything the host needs to emit
 variants, with only screened candidate columns requiring exact host
 confirmation.
 
 Per column batch [B, D] (D = padded depth):
-  1. merge qualities  PJ = PM + (1-PM)PS + (1-PM)(1-PS)PBAQ + ...PB   (VPU)
+  1. merge qualities  PJ = PM + (1-PM)PS + (1-PM)(1-PS)PBAQ + ...PB
   2. base filters (min_bq / min_alt_bq / min_jq) + alt counts (segment sums)
   3. linear-space screening DP over the full depth (pure FMA scan;
      filtered reads enter as p=0 = exact identity) -> candidate mask
@@ -54,7 +54,7 @@ def build_column_call(min_bq=D.DEFAULT_MIN_BQ, min_alt_bq=D.DEFAULT_MIN_ALT_BQ,
                       min_jq=D.DEFAULT_MIN_JQ, min_alt_jq=D.DEFAULT_MIN_ALT_JQ,
                       min_cov=D.DEFAULT_MIN_COV, sig=D.DEFAULT_SIG,
                       use_baq=True, use_mq=True, use_sq=False,
-                      s=None, kmax=KMAX, use_pallas=False):
+                      s=None, kmax=KMAX):
     """Returns a jittable fn(nt4, bq, baq, mq, sq, valid, ref_nt4, num_bases,
     coverage, bonf_base) -> dict of per-column outputs."""
     jax, jnp = _jx()
@@ -75,8 +75,8 @@ def build_column_call(min_bq=D.DEFAULT_MIN_BQ, min_alt_bq=D.DEFAULT_MIN_ALT_BQ,
             keep &= ~is_alt | (mq_phred >= min_alt_jq)
 
         # per-base counts via 5 masked sums over [B, D] — never
-        # materializing a one-hot [B, D, 5] tensor (that costs 1.3GB of
-        # HBM traffic at the bench shape and dominated the whole step)
+        # materializing a one-hot [B, D, 5] tensor (that would move GBs
+        # of device memory at the bench shape)
         kept_alt = keep & is_alt
         alt_raw5 = jnp.stack(
             [jnp.sum((nt4 == b) & is_alt, axis=1) for b in range(5)], axis=1
@@ -97,8 +97,8 @@ def build_column_call(min_bq=D.DEFAULT_MIN_BQ, min_alt_bq=D.DEFAULT_MIN_ALT_BQ,
         # The Poisson-binomial tail is permutation invariant, so the
         # screening DP streams the *unsorted* masked probs — no device sort
         # needed.  The DP runs in LINEAR f32 space: each step is then pure
-        # multiply-add (no transcendentals), ~4x faster than a log-space
-        # scan on the VPU.  Filtered-out reads are encoded as p=0, which is
+        # multiply-add (no transcendentals, unlike a log-space scan).
+        # Filtered-out reads are encoded as p=0, which is
         # an *exact* identity update (a zero-error-prob read multiplies
         # every cell by 1-p=1).  f32 underflow can only shrink the partial
         # tail, and a smaller tail only *adds* candidates — conservative in
@@ -143,16 +143,9 @@ def build_column_call(min_bq=D.DEFAULT_MIN_BQ, min_alt_bq=D.DEFAULT_MIN_ALT_BQ,
             new = (is_tail * tail + (1.0 - is_tail) * std) * not_beyond
             return new, None
 
-        if use_pallas and kmax == KMAX:
-            # hand-written kernel: DP state resident in VMEM, 32 reads per
-            # grid step (~3x the XLA scan on a v5e chip)
-            from .pallas_poissbin import tail_device
-
-            tail_val = tail_device(prefix, kc)
-        else:
-            state, _ = jax.lax.scan(step, state0, prefix.T, unroll=16)
-            lin_tail = jnp.take_along_axis(state, kc[:, None], axis=1)[:, 0]
-            tail_val = jnp.log(jnp.maximum(lin_tail, jnp.float32(1e-37)))
+        state, _ = jax.lax.scan(step, state0, prefix.T, unroll=16)
+        lin_tail = jnp.take_along_axis(state, kc[:, None], axis=1)[:, 0]
+        tail_val = jnp.log(jnp.maximum(lin_tail, jnp.float32(1e-37)))
         # tail_val after min(depth, s_eff) reads is a lower bound of the
         # final tail (exact when the whole depth was processed), so
         # "bound >= threshold" safely rules a column out.  Columns whose
@@ -186,10 +179,7 @@ def build_sharded_column_call(mesh=None, **kw):
         out["num_tested"] = jax.lax.psum(out.pop("num_tested"), "cols")
         return out
 
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     spec_cols = P("cols")
     in_specs = (spec_cols,) * 7 + (spec_cols,)

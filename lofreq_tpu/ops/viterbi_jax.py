@@ -1,6 +1,6 @@
 """Batched Viterbi realignment on device (JAX).
 
-TPU rendition of the per-read realigner (csrc/realign.c is the exact host
+Device rendition of the per-read realigner (csrc/realign.c is the exact host
 version).  Full-width DP rows over the reference window; the D state's
 within-row max-plus recurrence
     D[k] = max(M[k-1] + a, D[k-1] + b)

@@ -328,7 +328,7 @@ def _splice_device_baq(lib, buf, raw, cs, ref, n_reads, device_baq):
     with stagetimer.stage("ingest.device_baq"):
         baq = device_baq.run(ref, codes[idx], quals[idx], pos[idx],
                              xb[idx], xe[idx])
-    if baq is None:  # device unavailable/degraded: C BAQ fallback
+    if baq is None:  # reads span more than one window: C BAQ covers
         return None
     seq_start = np.zeros(n_reads + 1, np.int64)
     np.cumsum(lq, out=seq_start[1:])

@@ -504,22 +504,16 @@ def run_call(
             if pconf.bed is None and vconf.baq_screen_config_ok(pconf) \
                     and os.environ.get(
                         "LOFREQ_TPU_BAQ_SCREEN", "1") != "0":
-                engaged = False
                 if vconf.device_baq_on(pconf):
-                    # HARD requirement: the screen must be compiled and
-                    # live.  With a dead screen every alt column becomes
-                    # an exact-confirm candidate and the screening mode
-                    # degenerates into a SLOWER exact pass.
-                    from ..ops.screen import screen_ready
+                    # device BAQ screening: the sub-screen runs on the
+                    # device screen when it is on and on the host engine
+                    # otherwise; either is conservative
+                    from ..defaults import BAQ_SCREEN_DELTA
+                    from ..ops.device_baq import get_runner
 
-                    if screen_ready():
-                        from ..defaults import BAQ_SCREEN_DELTA
-                        from ..ops.device_baq import get_runner
-
-                        device_baq = get_runner(ext_baq=pconf.ext_baq)
-                        vconf.baq_screen_bias = BAQ_SCREEN_DELTA
-                        engaged = True
-                if not engaged:
+                    device_baq = get_runner(ext_baq=pconf.ext_baq)
+                    vconf.baq_screen_bias = BAQ_SCREEN_DELTA
+                else:
                     # host no-BAQ screening: the sweep skips the C BAQ
                     # (its err probs are per-base lower bounds), the
                     # top-k product prescreen discards provably
@@ -531,7 +525,6 @@ def run_call(
                     vconf.baq_screen_null = True
                     sweep_pconf = _copy.copy(pconf)
                     sweep_pconf.use_baq = False
-                    engaged = True
                 screen_ctx = []
             # window confirms run CONCURRENTLY with later windows'
             # ingest/screen: each window's candidates + raw bytes are

@@ -4,14 +4,15 @@
 Genome regions are binned from the BAM header (read-free chroms skipped),
 the largest bin is bisected greedily until max bin < total/(2*threads),
 bins run as independent call workers (multiprocessing across host cores;
-each worker can additionally use the TPU screen), per-bin test counts are
-*summed globally* before the final quality filter — the same two-phase
-dynamic-Bonferroni structure as the reference — and per-bin variant lists
-are concatenated in BAM chromosome order.
+forked workers run the host engine, so no worker opens the card), per-bin
+test counts are *summed globally* before the final quality filter — the
+same two-phase dynamic-Bonferroni structure as the reference — and
+per-bin variant lists are concatenated in BAM chromosome order.
 """
 
 from __future__ import annotations
 
+import logging
 import multiprocessing as mp
 import os
 import sys
@@ -25,6 +26,8 @@ from ..io.bam import BamReader
 from ..io.vcf import VcfWriter, new_header
 
 BIN_PER_THREAD = 2
+log = logging.getLogger("lofreq_tpu")
+_HOST_ENGINE_LOGGED = False
 
 
 def bins_from_bamheader(bam_path):
@@ -104,17 +107,18 @@ def run_parallel_regions(bam_path, ref_path, vconf_kw, pconf_kw, threads,
     jobs = [make_job(bam_path, ref_path, c, s, e, vconf_kw, pconf_kw,
                      bed_path, ign_pos) for c, s, e in bins]
     if threads > 1:
-        import os
-
-        # resolve the device-stage gates ONCE before forking: the cached
-        # decision (and measured link bandwidth) is inherited by fork, so
-        # workers skip the jax import + link probe entirely when the
-        # engine is host-side
-        if not vconf_kw.get("use_device_screen"):
-            from ..ops.screen import device_screen_default
-
-            device_screen_default(wait=True)
-
+        # one process per card: a JAX process reserves most of the card's
+        # memory, and a CUDA context does not survive fork.  So the parent
+        # touches no JAX backend before forking, and the workers run the
+        # host engine (same VCF; see call/caller.py:_screen_dispatch_sub)
+        global _HOST_ENGINE_LOGGED
+        if not _HOST_ENGINE_LOGGED:
+            _HOST_ENGINE_LOGGED = True
+            log.info("region-parallel call: %d worker processes run the "
+                     "host engine; no worker opens the device", threads)
+        for j in jobs:
+            j["vconf_kw"] = dict(j["vconf_kw"], use_device_screen=False,
+                                 use_device_baq=False)
         ctx = mp.get_context("fork")
         # process-parallel workers each get a single native BAQ thread —
         # region parallelism already saturates the cores

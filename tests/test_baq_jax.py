@@ -58,32 +58,6 @@ def test_baq_jax_matches_c():
     assert diff.max() <= 2, f"max phred diff {diff.max()}"
 
 
-def test_pallas_baq_matches_jax_path():
-    """The Pallas fwd/bwd kernels reproduce the XLA device BAQ exactly
-    (interpret mode on CPU; on hardware f32 op-order gives <=±1 phred)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from lofreq_tpu.ops.baq_jax import _build as jbuild
-    from lofreq_tpu.ops.pallas_baq import baq_pallas
-
-    rng = np.random.default_rng(4)
-    B, L, Lr = 128, 100, 128
-    refw = rng.integers(0, 4, (B, Lr)).astype(np.int32)
-    query = np.array([refw[b, 5:5 + L] for b in range(B)], np.int32)
-    err = rng.random((B, L)) < 0.05
-    query[err] = rng.integers(0, 4, err.sum())
-    qualp = (10 ** (-rng.integers(15, 41, (B, L)) / 10)).astype(np.float32)
-    l_ref = rng.integers(108, 128, B).astype(np.int32)
-
-    qj, sj, *_ = jbuild(L, Lr, 7)(
-        jnp.asarray(refw), jnp.asarray(query), jnp.asarray(qualp),
-        jnp.asarray(l_ref))
-    qp, sp = baq_pallas(refw, query, qualp, l_ref)
-    assert np.array_equal(qp, np.asarray(qj))
-    assert np.array_equal(sp, np.asarray(sj))
-
-
 def test_baq_jax_flips_only_at_truncation_boundaries():
     """Device (f32) vs exact C BAQ: integer disagreements must be confined
     to bases whose pre-truncation phred sits within 1e-3 of an integer

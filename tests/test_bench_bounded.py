@@ -1,12 +1,13 @@
 """bench.py must terminate with a JSON line even when the device compile
-service never returns (VERDICT r4: a stalled compile consumed the whole
-600s harness budget and the bench printed nothing).
+never returns (a stalled compile must not consume the harness budget
+with nothing printed).
 
 The test runs the real bench script in a subprocess with (a) a tiny
 workload, (b) the screen manager's _submit stubbed to a never-completing
-future, and (c) the engine gates forced on — so the bench takes the
-"device path" decision, hits the dead compile, and must still emit its
-JSON with engine.compile_pending=true inside the bounded budget.
+future, and (c) the engine selection forced to the device screen — so
+the bench takes the "device path" decision, hits the dead compile, and
+must still emit its JSON with engine.compile_pending=true inside the
+bounded budget.
 """
 
 import json
@@ -23,16 +24,14 @@ import jax
 jax.config.update("jax_platforms", "cpu")  # deterministic test backend
 from concurrent.futures import Future
 
-import lofreq_tpu.ops.probe as P
 import lofreq_tpu.ops.screen as S
 
-P.probe_device = lambda wait_s=0.0: {"backend": "cpu", "bw_mbs": 1e9}
-S.device_screen_default = lambda wait=False: True
+S.device_screen_default = lambda: True
 
 
-def _dead_submit(self, key, modes):
-    fut = Future()  # never completes: a hung remote compile service
-    self._inflight = (key, self._mode_rank, fut, time.time())
+def _dead_submit(self, key):
+    fut = Future()  # never completes: a hung compile
+    self._inflight = (key, fut, time.time())
     return fut
 
 
@@ -52,7 +51,6 @@ def test_bench_terminates_under_dead_compile_service():
         LOFREQ_BENCH_RUNS="2",
         LOFREQ_BENCH_COMPILE_WAIT="2",
         LOFREQ_BENCH_WALL_BUDGET="60",
-        LOFREQ_TPU_GATE_CACHE="0",
     )
     t0 = time.time()
     out = subprocess.run([sys.executable, "-c", _PRELUDE], env=env,
@@ -68,6 +66,7 @@ def test_bench_terminates_under_dead_compile_service():
     assert rec["value"] > 0, rec
     assert rec["engine"]["compile_pending"] is True
     assert rec["engine"]["screen_dispatches"] == 0
+    assert rec["engine"]["backend"] == "cpu"
     # the dead service must not have eaten the budget: the bench's own
     # caps (compile wait 2s + wall budget) bound the whole thing
     assert wall < 400, wall

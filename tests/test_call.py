@@ -107,7 +107,7 @@ def test_af_accuracy(sim, called):
 
 
 def test_device_screen_equivalence(sim, called, tmp_path):
-    """Calls with the TPU screening path must equal the all-exact path."""
+    """Calls with the device screening path must equal the all-exact path."""
     res_exact, _ = called
     vconf = VarcallConf(use_baq=False, use_idaq=False, use_device_screen=True)
     pconf = PileupConf(use_baq=False, use_idaq=False)

@@ -3,9 +3,9 @@
 The manager must (a) never block a concurrent dispatcher behind a
 warm-up caller's long wait (the lock is released around future waits),
 (b) bound every caller's wait by its own budget even when the compile
-never finishes, and (c) not poison the machine-wide degrade memo on a
-hard-abandoned (still-running) compile — the memo is for genuine
-failures only.
+never finishes, (c) adopt a compile that lands after the budget, and
+(d) raise — never degrade without a word — when a compile fails or
+hangs past HARD_ABANDON_S.
 """
 
 import threading
@@ -21,18 +21,14 @@ class _StubManager(S._ScreenManager):
     """Manager whose submits return a controllable Future instead of
     launching a real jit compile."""
 
-    def __init__(self, modes=("stub",)):
+    def __init__(self):
         super().__init__()
-        self._stub_modes = list(modes)
         self.futures = []
 
-    def _modes(self):
-        return self._stub_modes
-
-    def _submit(self, key, modes):
+    def _submit(self, key):
         fut = Future()
         self.futures.append(fut)
-        self._inflight = (key, self._mode_rank, fut, time.time())
+        self._inflight = (key, fut, time.time())
         return fut
 
 
@@ -76,43 +72,44 @@ def test_late_adoption_after_budget_miss():
     assert m.get(256, 32)(None) == "fn"
 
 
-def test_hard_abandon_degrades_without_memo_write(monkeypatch):
-    monkeypatch.setenv("LOFREQ_TPU_COMPILE_DEADLINE", "0.05")
-    writes = []
-    monkeypatch.setattr(S, "_mode_memo_write", lambda r: writes.append(r))
-    m = _StubManager(modes=["stub-a", "stub-b"])
+def test_hard_abandon_degrades_without_memo_write():
+    """A compile still pending after HARD_ABANDON_S raises instead of
+    leaving the screen dark; nothing is remembered between processes,
+    so the next get() starts a fresh compile."""
+    m = _StubManager()
     m.HARD_ABANDON_S = 0.05
     assert m.get(256, 32, wait_s=0.01) is None
     time.sleep(0.1)
-    # next poll hard-abandons the stuck compile: rank advances in this
-    # process (and the next rung is submitted), but the machine-wide
-    # memo must NOT record a compile that might still succeed
-    m.get(256, 32)
-    assert m._mode_rank >= 1
-    assert writes == []
+    with pytest.raises(TimeoutError):
+        m.get(256, 32)
+    assert m._inflight is None
+    assert m.get(256, 32, wait_s=0.01) is None
+    assert len(m.futures) == 2
 
 
-def test_failed_compile_degrades_and_memoizes(monkeypatch):
-    writes = []
-    monkeypatch.setattr(S, "_mode_memo_write", lambda r: writes.append(r))
-    m = _StubManager(modes=["stub-a", "stub-b"])
-    fut_holder = m.get(256, 32, wait_s=0.05)
-    assert fut_holder is None
+def test_failed_compile_degrades_and_memoizes():
+    """A compile that fails raises its own error to the caller that
+    adopts it; the manager keeps no degraded state, so a later get()
+    compiles again."""
+    m = _StubManager()
+    assert m.get(256, 32, wait_s=0.05) is None
     m.futures[0].set_exception(RuntimeError("boom"))
-    m.get(256, 32)  # adopts the failure, degrades, resubmits rung 2
-    assert m._mode_rank >= 1
-    assert writes == [1]
+    with pytest.raises(RuntimeError, match="boom"):
+        m.get(256, 32)
+    assert m._inflight is None and not m._fns
+    m.get(256, 32, wait_s=0.01)
+    assert len(m.futures) == 2
 
 
-def test_screen_mode_env_forces_ladder(monkeypatch):
-    jax = pytest.importorskip("jax")
-    m = S._ScreenManager()
-    if jax.default_backend() == "cpu":
-        assert m._modes() == ["xla"]  # env can't add pallas on cpu
-        return
-    monkeypatch.setenv("LOFREQ_TPU_SCREEN_MODE", "xla")
-    assert m._modes() == ["xla"]
-    monkeypatch.setenv("LOFREQ_TPU_SCREEN_MODE", "pallas")
-    assert m._modes() == ["pallas", "xla"]
-    monkeypatch.setenv("LOFREQ_TPU_SCREEN_MODE", "off")
-    assert m._modes() == []
+def test_other_shape_compile_does_not_block_adoption():
+    """At most one compile in flight: a second shape polls as None until
+    the first lands, then gets its own compile."""
+    m = _StubManager()
+    assert m.get(256, 32, wait_s=0.01) is None
+    assert m.get(512, 32) is None
+    assert len(m.futures) == 1
+    m.futures[0].set_result(lambda *a, **k: "a")
+    assert m.get(512, 32, wait_s=0.01) is None  # adopts (256, 32) first
+    assert m.get(256, 32)(None) == "a"
+    assert m.get(512, 32, wait_s=0.01) is None
+    assert len(m.futures) == 2

@@ -9,8 +9,6 @@ columns").  These tests run on the 8-virtual-CPU-device mesh and assert
 `call` with the screen forced on matches the host-only VCF.
 """
 
-import os
-
 import numpy as np
 import pytest
 
@@ -39,12 +37,8 @@ def test_local_mesh_detected():
 
 def test_sharded_mask_matches_single_device():
     probs, depths, ks, bonf = _mk_inputs(seed=3)
-    os.environ["LOFREQ_TPU_DEVICE_SCREEN"] = "1"
-    try:
-        got = S.screen_candidates(probs, depths, ks, bonf, 0.01)
-    finally:
-        del os.environ["LOFREQ_TPU_DEVICE_SCREEN"]
-    single = S._build_screen_fn(use_pallas=False, mesh=None)
+    got = S.screen_candidates(probs, depths, ks, bonf, 0.01)
+    single = S._build_screen_fn(mesh=None)
     B, D = probs.shape
     s = min(S._bucket(D), S.TOP_S)
     Bp = S._bucket_b(B)
@@ -76,7 +70,7 @@ def test_sharded_mask_matches_single_device():
 
 def test_screen_output_is_sharded_across_devices():
     mesh = S._local_mesh()
-    fn = S._build_screen_fn(use_pallas=False, mesh=mesh)
+    fn = S._build_screen_fn(mesh=mesh)
     B, s = 512, 32
     codes = np.full((B, s), 255, np.uint8)
     depths = np.zeros(B, np.int32)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Three-row engine matrix on the bench workload (VERDICT r4 #5):
+"""Three-row engine matrix on the bench workload:
 host engine / device screen / device BAQ — same workload, same schema,
 identical-VCF asserted across all rows.
 
@@ -33,9 +33,6 @@ def main():
     td = tempfile.mkdtemp()
     art = simulate_fast(td, genome_len=GENOME, depth=DEPTH, seed=3)
 
-    from lofreq_tpu.ops.probe import probe_device
-
-    probe_device(wait_s=90)
     ready = S.screen_ready(wait_s=float(
         os.environ.get("LOFREQ_BENCH_COMPILE_WAIT", "240")))
 

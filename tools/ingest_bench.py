@@ -2,8 +2,8 @@
 """Host ingest throughput: BGZF decode -> native fill -> fused columns.
 
 Reports rows/s and columns/s for the host side of the call pipeline (the
-part that must keep a TPU fed) at 1..N threads, on a synthetic BAM.
-SURVEY §7 "htslib decode must not starve chips"; VERDICT r1 #8.
+part that must keep the device fed) at 1..N threads, on a synthetic BAM.
+SURVEY §7 "htslib decode must not starve chips".
 
 Usage: python tools/ingest_bench.py [genome_len] [depth]
 """
